@@ -1,88 +1,29 @@
 #!/usr/bin/env python
-"""Headline benchmark: Mrays/s/chip forward+backward, 720p Master Chief.
+"""Headline benchmark: Mrays/s per card, forward + backward, 720p flagship.
 
 Runs the differentiable render step (forward trace + pixel-MSE + backward
-through shading/hit-data, hit finding via the Pallas kernel) on the flagship
-scene (reference main.cpp:54-154: Master Chief mesh + checker ground + HDR
-light + iron + mirror spheres) at 720p and reports traced rays per second.
+through shading/hit-data, hit finding via the clustered kernel) on the
+seeded flagship stand-in (``presets.flagship_standin``: the flagship's
+3,042-triangle, two-texture-pair shapes with the reference's camera,
+ground, HDR light, iron and mirror spheres) at 1280x720, and reports traced
+rays per second.
 
 Ray accounting: rays = paths * max_bounce (4, reference main.cpp:180) —
-the fixed-depth wavefront traces every bounce slot. The SAME accounting is
-applied to the baseline denominator.
+the fixed-depth wavefront traces every bounce slot.
 
-``vs_baseline``: measured, not declared. The reference publishes no
-numbers (BASELINE.md), so tests/reforacle/reforacle — the reference's own
-headers compiled unmodified against from-scratch shims — is timed on this
-machine at the same scene (426x240x8spp: single-thread C++). Measured
-0.247 Mpaths/s = 0.99 Mrays/s in the same accounting; the recorded
-constant is used if the binary is absent.
+Before any number is taken, the kernels are checked against their jnp
+references on the card (``chip_smoke.phase_parity``). Extra fields:
+``fwd_only`` Mrays/s per card for the forward render path, ``step_ms``, and
+``frame_wallclock_s`` — a full 1280x720 frame at ``frame_spp``, measured.
 
-Extra fields (VERDICT r2 #2): ``fwd_only`` Mrays/s/chip for the pure
-forward render path, ``frame_wallclock_s`` (full 720p frame at the bench
-spp, measured) with a 5000-spp flagship extrapolation, and ``mfu`` — the
-train step's XLA-reported FLOPs over wall-clock against the chip's peak
-(bf16 MXU peak; the workload is mostly f32 VPU math, so this is a
-conservative roofline).
-
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}.
+Prints the platform, device kind, count, card name and power limit, then
+ONE JSON line: {"metric", "value", "unit", ...}. Needs a GPU.
 """
 
 import json
-import os
 import subprocess
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-
-# measured on this machine (single x86 core, tests/reforacle @ 426x240x8spp,
-# paths*4 accounting); re-measured live below when the binary exists
-REF_BASELINE_MRAYS_RECORDED = 0.99
-TPU_V5E_PEAK_FLOPS = 197e12  # bf16 MXU peak per chip
-# f32 VPU roofline (VERDICT r4 #9): the workload is VPU math, not MXU
-# matmuls, so the interpretable utilization number is against the VPU's
-# peak: (8 sublanes x 128 lanes) x 4 ALUs x 2 (FMA) x ~1.5 GHz ~= 12.3
-# TFLOP/s = MXU peak / 16.
-TPU_V5E_VPU_PEAK_FLOPS = TPU_V5E_PEAK_FLOPS / 16.0
-
-
-def measure_reforacle() -> float | None:
-    """Time the compiled reference at 240p -> Mrays/s (paths*4).
-
-    Runs at 8 spp and 1 spp and uses the *difference* so fixed process
-    overhead (startup, glTF parse, PNG write) cancels out of the
-    render-phase rate (ADVICE r3: timing the whole process biased the
-    baseline low and inflated vs_baseline).
-    """
-    here = os.path.dirname(os.path.abspath(__file__))
-    binary = os.path.join(here, "tests", "reforacle", "reforacle")
-    gltf = "/root/reference/data/masterchief2-separate-xf.gltf"
-    if not (os.path.exists(binary) and os.path.exists(gltf)):
-        return None
-
-    def run(spp: int) -> float:
-        t0 = time.time()
-        subprocess.run(
-            [binary, "426", "240", str(spp), "4",
-             "/tmp/reforacle_bench.png", gltf],
-            cwd=os.path.dirname(binary),
-            stdout=subprocess.DEVNULL,
-            stderr=subprocess.DEVNULL,
-            timeout=120,
-            check=True,
-        )
-        return time.time() - t0
-
-    try:
-        # min of repeats before differencing: one noisy run otherwise
-        # perturbs the published vs_baseline directly, and dt can go
-        # non-positive under load (ADVICE r4)
-        dt = min(run(8) for _ in range(2)) - min(run(1) for _ in range(2))
-        if dt <= 0:
-            return None
-        return 426 * 240 * (8 - 1) * 4 / dt / 1e6
-    except Exception:
-        return None
 
 
 def main():
@@ -91,124 +32,45 @@ def main():
     import numpy as np
     import optax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    try:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except AttributeError:
-        pass
+    dev = jax.devices()[0]
+    n_dev = len(jax.devices())
+    if dev.platform != "gpu":
+        print("bench: no GPU found; the benchmark runs only on the card",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"platform {dev.platform}, kind {dev.device_kind!r}, count {n_dev}"
+          f"; nvidia-smi name, power.limit: {card}", flush=True)
 
-    from sexy_raytracer_tpu.diff.inverse import (
-        TrainState,
-        make_train_step,
-        sample_tile_ids,
-    )
-    from sexy_raytracer_tpu.diff.params import extract_params
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.parallel.mesh import make_mesh, replicate_scene, shard_rays
-    from sexy_raytracer_tpu.render.camera import Camera
-    from sexy_raytracer_tpu.render.renderer import render_pixels, tile_pixel_order
+    import chip_smoke
+    from sexy_raytracer_jax.diff.inverse import make_train_step, sample_tile_ids
+    from sexy_raytracer_jax.diff.params import extract_params
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.parallel.mesh import make_mesh, replicate_scene, shard_rays
+    from sexy_raytracer_jax.render.camera import Camera
+    from sexy_raytracer_jax.render.renderer import render_pixels, tile_pixel_order
 
-    baseline = measure_reforacle() or REF_BASELINE_MRAYS_RECORDED
-
-    scene, cfg = presets.masterchief()
+    scene, cfg = presets.flagship_standin()
     camera = Camera.from_config(cfg.camera, cfg.aspect)
 
-    # TPU-hardware kernel parity gate (VERDICT r3 #6): the production
-    # Pallas find kernel must return exactly the bruteforce winners on a
-    # fuzz wavefront ON THE REAL CHIP before any number is recorded —
-    # CPU CI only exercises it in interpret mode.
-    from sexy_raytracer_tpu.ops.intersect import find_hit, find_hit_bruteforce
-
-    rng_fuzz = np.random.default_rng(42)
-    fo = jnp.asarray(rng_fuzz.normal(0, 3.0, (4096, 3)), jnp.float32)
-    fd = rng_fuzz.normal(size=(4096, 3))
-    fd /= np.linalg.norm(fd, axis=1, keepdims=True)
-    fd = jnp.asarray(fd, jnp.float32)
-    ft = jnp.asarray(rng_fuzz.uniform(0, 1, 4096), jnp.float32)
-    p_k, _ = jax.jit(lambda o, d, t: find_hit(scene, o, d, t, method="pallas"))(fo, fd, ft)
-    p_b, _ = jax.jit(lambda o, d, t: find_hit(scene, o, d, t, method="bruteforce"))(fo, fd, ft)
-    mism = int(jnp.sum(p_k != p_b))
-    if mism:
-        print(json.dumps({
-            "metric": "mrays_per_s_per_chip_fwd_bwd_720p_masterchief",
-            "value": 0.0, "unit": "Mrays/s/chip", "vs_baseline": 0.0,
-            "error": f"kernel parity FAILED: {mism}/4096 prim mismatches",
-        }))
-        return 1
-
-    # Fused-kernel hardware gate (VERDICT r4 #3): the fused Pallas
-    # integrator (the production numeric path for every TPU render since
-    # r4) must reproduce the jnp integrator's radiance AND gradient ON
-    # THE REAL CHIP before any number is recorded — CPU CI only proves
-    # them equal in interpret mode (tests/test_fused.py). Tolerance: the
-    # two paths are the same f32 math, but XLA reassociates the jnp
-    # path's fusions on hardware, so up to ~1e-4 relative drift on a
-    # mean-square loss over an HDR scene is expected; 1e-3 is the gate.
-    import functools
-
-    from sexy_raytracer_tpu.diff.params import extract_params, merge_params
-
-    gate_px = 4096
-    rng_gate = np.random.default_rng(7)
-    gpix = jnp.asarray(sample_tile_ids(rng_gate, cfg.width, cfg.height,
-                                       gate_px))
-    gtgt = jnp.full((gate_px, 3), 0.25, jnp.float32)
-    gbg = jnp.asarray(cfg.background, jnp.float32)
-
-    from sexy_raytracer_tpu.render.integrator import scene_no_emissive_tris
-
-    vis_ok = scene_no_emissive_tris(scene)
-
-    def gate_loss(params, fused):
-        sc = merge_params(scene, params)
-        rad = render_pixels(
-            sc, camera, gpix, jnp.int32(0), jax.random.key(5), gbg,
-            width=cfg.width, height=cfg.height, spb=2,
-            spp_total=cfg.samples_per_pixel, max_bounce=cfg.max_bounce,
-            method="auto", fused=fused,
-            # the gate covers the production path: fused kernels + the
-            # last-bounce visibility shortcut, vs the jnp closest-hit
-            # integrator
-            last_bounce_vis=(fused and vis_ok),
-        )
-        err = rad / 2 - gtgt
-        return jnp.mean(err * err)
-
-    p0 = extract_params(scene)
-    v_fused, g_fused = jax.jit(
-        jax.value_and_grad(functools.partial(gate_loss, fused=True))
-    )(p0)
-    v_jnp, g_jnp = jax.jit(
-        jax.value_and_grad(functools.partial(gate_loss, fused=False))
-    )(p0)
-    rel_v = abs(float(v_fused) - float(v_jnp)) / max(abs(float(v_jnp)), 1e-12)
-    rel_g = 0.0
-    for k in g_jnp:
-        a = np.asarray(g_fused[k], np.float64)
-        b = np.asarray(g_jnp[k], np.float64)
-        scale = max(float(np.max(np.abs(b))), 1e-12)
-        rel_g = max(rel_g, float(np.max(np.abs(a - b))) / scale)
-    if rel_v > 1e-3 or rel_g > 1e-2:
-        print(json.dumps({
-            "metric": "mrays_per_s_per_chip_fwd_bwd_720p_masterchief",
-            "value": 0.0, "unit": "Mrays/s/chip", "vs_baseline": 0.0,
-            "error": (f"fused-kernel parity FAILED on hardware: "
-                      f"rel_loss={rel_v:.2e} rel_grad={rel_g:.2e}"),
-        }))
-        return 1
+    # the kernels must return the jnp references' answers on this card
+    # before any number is recorded (raises on a mismatch)
+    chip_smoke.phase_parity(scene, cfg, camera)
 
     mesh = make_mesh()  # all local devices on the ray axis
-    n_dev = len(jax.devices())
 
     spb = 4
     pixels = 32768  # 131072 paths per step per device group
     optimizer = optax.adam(1e-3)
     params = extract_params(scene)
     step = make_train_step(mesh, cfg, optimizer, spb=spb, method="auto",
-                           last_bounce_vis=vis_ok, donate_state=True)
-    # flat state domain: keeps the atlas parameter/adam moments in 1-D at
-    # the jit boundary, avoiding ~1.6 ms/step of layout copies
+                           donate_state=True)
+    # init copies the params, so donating the state cannot delete the
+    # scene's own buffers
     state = step.init(params)
 
     scene_r = replicate_scene(scene, mesh)
@@ -219,12 +81,7 @@ def main():
     pix = shard_rays(jnp.asarray(ids), mesh)
     tgt = shard_rays(jnp.full((pixels, 3), 0.5, jnp.float32), mesh)
 
-    # warmup / compile. Two steps: the first sees host-backed state and
-    # compiles once; its output state is device-resident/sharded, which is
-    # a different input signature -> second compile. Timing must start
-    # only once the steady-state signature is compiled.
-    state, loss = step(state, scene_r, camera, pix, tgt, jax.random.key(0))
-    _ = float(loss)
+    # warm-up / compile
     state, loss = step(state, scene_r, camera, pix, tgt, jax.random.key(0))
     _ = float(loss)
 
@@ -237,28 +94,8 @@ def main():
 
     paths = pixels * spb * n_steps
     rays = paths * cfg.max_bounce
-    mrays_per_s = rays / dt / 1e6
-    mrays_per_chip = mrays_per_s / n_dev
+    mrays_per_chip = rays / dt / 1e6 / n_dev
     step_s = dt / n_steps
-
-    # MFU: XLA's own FLOP count for the compiled train step / wall-clock,
-    # against both the bf16 MXU roofline and the f32 VPU roofline (the
-    # workload is VPU math; VERDICT r4 #9)
-    mfu = None
-    mfu_vpu = None
-    try:
-        cost = (
-            jax.jit(step)
-            .lower(state, scene_r, camera, pix, tgt, jax.random.key(0))
-            .compile()
-            .cost_analysis()
-        )
-        step_flops = float(cost.get("flops", 0.0))
-        if step_flops > 0:
-            mfu = step_flops / step_s / (TPU_V5E_PEAK_FLOPS * n_dev)
-            mfu_vpu = step_flops / step_s / (TPU_V5E_VPU_PEAK_FLOPS * n_dev)
-    except Exception:
-        pass
 
     # forward-only: the pure render path (no loss/backward), same batch
     import functools
@@ -267,7 +104,7 @@ def main():
         render_pixels,
         width=cfg.width, height=cfg.height, spb=spb,
         spp_total=cfg.samples_per_pixel, max_bounce=cfg.max_bounce,
-        method="auto", last_bounce_vis=vis_ok,
+        method="auto",
     ))
     order = tile_pixel_order(cfg.width, cfg.height)
     fpix = jnp.asarray(order[:pixels])
@@ -281,46 +118,37 @@ def main():
     fwd_dt = time.time() - t0
     fwd_mrays_chip = rays / fwd_dt / 1e6 / n_dev
 
-    # full-frame wall-clock at 720p (one frame at frame_spp, measured
-    # end-to-end through the driver, then extrapolated to the flagship's
-    # 5000 spp from the per-sample slope)
+    # full-frame wall-clock at 720p, measured end to end through the driver
+    # after a warm-up frame (spp_total is a static jit argument, so the
+    # warm-up runs at the same spp)
     from dataclasses import replace
 
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
+    from sexy_raytracer_jax.render.renderer import render_accumulate
 
     frame_spp = 32
-    # run the frame twice and report the min: the first run pays 30-45 s
-    # of per-process compilation that the persistent cache does not absorb
-    # across processes on this backend (measured frame0 44.7 s vs frame1
-    # 6.1 s, round-5), and spp_total is a STATIC jit arg so a cheaper-spp
-    # warm-up compiles different executables and warms nothing
-    frame_s = None
-    for _ in range(2):
-        t0 = time.time()
-        render_accumulate(scene, replace(cfg, samples_per_pixel=frame_spp),
-                          method="auto")
-        dt = time.time() - t0
-        frame_s = dt if frame_s is None else min(frame_s, dt)
-    flagship_est_s = frame_s * 5000.0 / frame_spp
+    fcfg = replace(cfg, samples_per_pixel=frame_spp)
+    render_accumulate(scene, fcfg, method="auto")
+    t0 = time.time()
+    render_accumulate(scene, fcfg, method="auto")
+    frame_s = time.time() - t0
 
     print(
         json.dumps(
             {
-                "metric": "mrays_per_s_per_chip_fwd_bwd_720p_masterchief",
+                "metric": "mrays_per_s_per_card_fwd_bwd_720p_flagship_standin",
                 "value": round(mrays_per_chip, 3),
-                "unit": "Mrays/s/chip",
-                "vs_baseline": round(mrays_per_chip / baseline, 3),
-                "baseline_measured_mrays": round(baseline, 3),
+                "unit": "Mrays/s/card",
                 "fwd_only": round(fwd_mrays_chip, 3),
                 "step_ms": round(step_s * 1e3, 2),
-                "mfu": round(mfu, 5) if mfu is not None else None,
-                "mfu_vpu": round(mfu_vpu, 5) if mfu_vpu is not None else None,
                 "frame_wallclock_s": round(frame_s, 2),
                 "frame_spp": frame_spp,
-                "flagship_5000spp_est_s": round(flagship_est_s, 1),
+                "device": {"platform": dev.platform,
+                           "kind": dev.device_kind, "count": n_dev},
+                "card": card,
             }
         )
     )
+    return 0
 
 
 if __name__ == "__main__":

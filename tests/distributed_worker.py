@@ -29,7 +29,7 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from sexy_raytracer_tpu.parallel.mesh import init_distributed
+    from sexy_raytracer_jax.parallel.mesh import init_distributed
 
     init_distributed(
         coordinator=f"localhost:{port}", num_processes=nproc, process_id=pid
@@ -40,18 +40,18 @@ def main() -> int:
     import numpy as np
     import optax
 
-    from sexy_raytracer_tpu.diff.inverse import TrainState, make_train_step
-    from sexy_raytracer_tpu.diff.params import extract_params
-    from sexy_raytracer_tpu.models import SceneBuilder
-    from sexy_raytracer_tpu.parallel.mesh import (
+    from sexy_raytracer_jax.diff.inverse import TrainState, make_train_step
+    from sexy_raytracer_jax.diff.params import extract_params
+    from sexy_raytracer_jax.models import SceneBuilder
+    from sexy_raytracer_jax.parallel.mesh import (
         RAY_AXIS,
         make_mesh,
         replicate_scene,
         shard_rays,
     )
-    from sexy_raytracer_tpu.parallel.render import make_sharded_chunk_fn
-    from sexy_raytracer_tpu.render.camera import Camera
-    from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
+    from sexy_raytracer_jax.parallel.render import make_sharded_chunk_fn
+    from sexy_raytracer_jax.render.camera import Camera
+    from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
 
     # same tiny scene/config as tests/test_parallel.py
     b = SceneBuilder()
@@ -132,7 +132,7 @@ def main() -> int:
 def host_to_global_cam(a, mesh):
     from jax.sharding import PartitionSpec as P
 
-    from sexy_raytracer_tpu.parallel.mesh import host_to_global
+    from sexy_raytracer_jax.parallel.mesh import host_to_global
 
     return host_to_global(a, mesh, P())
 

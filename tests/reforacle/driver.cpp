@@ -7,7 +7,7 @@
 // constants.
 //
 // Purpose: ground-truth renders of the reference's ACTUAL single-thread C++
-// semantics for statistical comparison against the TPU framework — the
+// semantics for statistical comparison against the JAX framework — the
 // checked-in golden images predate asset changes (the rustediron2-2x1
 // textures referenced at main.cpp:133-136 do not exist in data/), so only a
 // fresh run of the reference code itself is a valid comparison target.
@@ -131,7 +131,7 @@ static hittableList buildScene(const char* gltf_path) {
 // reference's commented random-sphere branch (main.cpp:92-122) draws from
 // the global mt19937, whose libstdc++ float mapping is not reproducible
 // bit-for-bit from Python — and scene GEOMETRY is just data. Both this
-// driver and sexy_raytracer_tpu/models/presets.shirley_parity() therefore
+// driver and sexy_raytracer_jax/models/presets.shirley_parity() therefore
 // draw the field from this 64-bit LCG (top 24 bits / 2^24: exact in f32,
 // bit-identical in both languages), so the two renderers build the SAME
 // scene and the statistical parity test compares like for like.

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.models.bvh import (
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.models.bvh import (
     build_bvh_numpy,
     primitive_bounds,
     validate_bvh,

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.ops.bvh_traverse import find_hit_bvh
-from sexy_raytracer_tpu.ops.intersect import find_hit_bruteforce
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.ops.bvh_traverse import find_hit_bvh
+from sexy_raytracer_jax.ops.intersect import find_hit_bruteforce
 
 
 def _scene(rng, n_tris=200, n_sph=40):

@@ -3,7 +3,7 @@
 import numpy as np
 
 from tests.test_render import small_config, small_scene
-from sexy_raytracer_tpu.render.renderer import render_accumulate
+from sexy_raytracer_jax.render.renderer import render_accumulate
 
 
 def test_resume_matches_uninterrupted(tmp_path):

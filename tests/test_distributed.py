@@ -24,9 +24,11 @@ import numpy as np
 import jax
 import pytest
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device CPU mesh"
-)
+
+
+@pytest.fixture(autouse=True)
+def _mesh(eight_devices):
+    """Every test here needs the 8-device CPU mesh (skips without it)."""
 
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "distributed_worker.py")
@@ -86,14 +88,14 @@ def test_multiprocess_train_and_render():
     import jax.numpy as jnp
     import optax
 
-    from sexy_raytracer_tpu.diff.inverse import TrainState, make_train_step
-    from sexy_raytracer_tpu.diff.params import extract_params
-    from sexy_raytracer_tpu.models import SceneBuilder
-    from sexy_raytracer_tpu.parallel.mesh import (
+    from sexy_raytracer_jax.diff.inverse import TrainState, make_train_step
+    from sexy_raytracer_jax.diff.params import extract_params
+    from sexy_raytracer_jax.models import SceneBuilder
+    from sexy_raytracer_jax.parallel.mesh import (
         make_mesh, replicate_scene, shard_rays,
     )
-    from sexy_raytracer_tpu.render.camera import Camera
-    from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
+    from sexy_raytracer_jax.render.camera import Camera
+    from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
 
     b = SceneBuilder()
     checker = b.add_checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.models.flatten import (
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.models.flatten import (
     PRIM_SPHERE,
     PRIM_TRIANGLE,
     to_indexed,

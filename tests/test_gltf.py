@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.models.gltf import GLTFFile, load_gltf
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.models.gltf import GLTFFile, load_gltf
 
 
 def test_cube_embedded_base64(data_dir):
@@ -82,7 +82,7 @@ def test_halo_glb_node_transforms_match_flagship(data_dir):
     loader ignores transforms). Applying the loader's node-transform pass +
     the fitted CHIEF_GLB_BAKE residual must land every triangle centroid on
     the -xf geometry (VERDICT r2 missing #2)."""
-    from sexy_raytracer_tpu.models.presets import CHIEF_GLB_BAKE
+    from sexy_raytracer_jax.models.presets import CHIEF_GLB_BAKE
 
     path = os.path.join(data_dir, "halo.glb")
     if not os.path.exists(path):
@@ -112,8 +112,8 @@ def test_masterchief_glb_preset_renders_like_gltf(data_dir):
     small deterministic render must agree almost exactly."""
     import dataclasses
 
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.render.renderer import render_accumulate
 
     scene_a, cfg = presets.masterchief(height=60, spp=8)
     scene_b, _ = presets.masterchief_glb(height=60, spp=8)
@@ -130,7 +130,7 @@ def test_masterchief_glb_preset_renders_like_gltf(data_dir):
 
 
 def test_square_and_scene_presets_build(data_dir):
-    from sexy_raytracer_tpu.models import presets
+    from sexy_raytracer_jax.models import presets
 
     sq, _ = presets.square(height=60, spp=4)
     assert sq.num_triangles == 2  # the quad

@@ -43,15 +43,15 @@ IRON_REGION = ((150, 200), (55, 130))  # excluded from golden compare
 
 @pytest.fixture(scope="module")
 def flagship_240p(data_dir):
-    from sexy_raytracer_tpu.models import presets
+    from sexy_raytracer_jax.models import presets
 
     return presets.masterchief(data_dir=data_dir, height=240)
 
 
 def _render_region(scene, cfg, rows, cols, spp, stride=2):
     """Mean resolved color over a strided pixel grid of the region."""
-    from sexy_raytracer_tpu.render.camera import Camera
-    from sexy_raytracer_tpu.render.renderer import render_pixels
+    from sexy_raytracer_jax.render.camera import Camera
+    from sexy_raytracer_jax.render.renderer import render_pixels
 
     W, H = cfg.width, cfg.height
     rr = np.arange(rows[0], rows[1], stride)
@@ -81,7 +81,7 @@ def _render_region(scene, cfg, rows, cols, spp, stride=2):
 def test_golden_region_statistics(flagship_240p):
     if not os.path.exists(GOLDEN):
         pytest.skip("reference golden image not available")
-    from sexy_raytracer_tpu.utils.png import read_png
+    from sexy_raytracer_jax.utils.png import read_png
 
     golden = read_png(GOLDEN, 3).astype(np.float64)
     scene, cfg = flagship_240p

@@ -6,7 +6,7 @@ Renders the SAME 426x240 flagship config at matched spp in both renderers:
     unmodified (driver restates main.cpp; UB resolved golden-consistently
     by zero-initialised operator new, see driver.cpp),
   * this framework on CPU (bruteforce path; identical math to the
-    TPU kernels, tests/test_pallas_find.py).
+    GPU kernel, tests/test_pallas_find.py).
 
 Comparison is per-pixel in LINEAR radiance with a z-test: the two
 renderers use different RNGs (mt19937 vs threefry), so pixel values are
@@ -66,7 +66,7 @@ def reforacle_linear():
             cwd=REF_CWD, check=True, timeout=600,
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
         )
-    from sexy_raytracer_tpu.utils.png import read_png
+    from sexy_raytracer_jax.utils.png import read_png
 
     png = read_png(out, 3).astype(np.float64)
     # invert the resolve: png = floor(256 * clamp(sqrt(mean), 0, 0.999));
@@ -78,9 +78,9 @@ def reforacle_linear():
 
 @pytest.fixture(scope="module")
 def ours_batches(data_dir):
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.render.camera import Camera
-    from sexy_raytracer_tpu.render.renderer import render_chunk
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.render.camera import Camera
+    from sexy_raytracer_jax.render.renderer import render_chunk
 
     scene, cfg = presets.masterchief(data_dir=data_dir, height=H)
     cam = Camera.from_config(cfg.camera, cfg.aspect)

@@ -6,11 +6,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sexy_raytracer_tpu.diff.inverse import _loss_fn
-from sexy_raytracer_tpu.diff.params import extract_params
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.render.camera import Camera
-from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
+from sexy_raytracer_jax.diff.inverse import _loss_fn
+from sexy_raytracer_jax.diff.params import extract_params
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.render.camera import Camera
+from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
 
 
 def _scene():
@@ -155,9 +155,9 @@ def test_pallas_cull_tracks_trained_geometry():
     the clustered cull kernel. merge_params re-derives the cluster AABBs on
     device; a stale ``_replace`` (the old behavior) demonstrably loses the
     hits, which is the wrong-forward/wrong-gradient failure this guards."""
-    from sexy_raytracer_tpu.diff.params import merge_params
-    from sexy_raytracer_tpu.models.scene import prepare_triangles
-    from sexy_raytracer_tpu.ops.intersect import find_hit, find_hit_bruteforce
+    from sexy_raytracer_jax.diff.params import merge_params
+    from sexy_raytracer_jax.models.scene import prepare_triangles
+    from sexy_raytracer_jax.ops.intersect import find_hit, find_hit_bruteforce
 
     b = SceneBuilder()
     mat = b.add_pbr_material(base_color=(0.8, 0.4, 0.3, 1.0), roughness=0.6)
@@ -210,9 +210,9 @@ def test_pallas_cull_tracks_trained_geometry():
 def test_refit_bvh_matches_host_build():
     """Device refit on an untouched scene reproduces host-built bounds, and
     moving sphere centers through merge_params keeps method='bvh' exact."""
-    from sexy_raytracer_tpu.diff.params import merge_params
-    from sexy_raytracer_tpu.models.bvh import refit_bvh_device
-    from sexy_raytracer_tpu.ops.intersect import find_hit, find_hit_bruteforce
+    from sexy_raytracer_jax.diff.params import merge_params
+    from sexy_raytracer_jax.models.bvh import refit_bvh_device
+    from sexy_raytracer_jax.ops.intersect import find_hit, find_hit_bruteforce
 
     b = SceneBuilder()
     m = b.add_pbr_material(base_color=(0.5, 0.5, 0.5, 1.0))

@@ -8,9 +8,9 @@ fuzzed random rays and primitives.
 import numpy as np
 import pytest
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.oracle import reference as oracle
-from sexy_raytracer_tpu.ops.intersect import find_hit_bruteforce, hit_data
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.oracle import reference as oracle
+from sexy_raytracer_jax.ops.intersect import find_hit_bruteforce, hit_data
 
 import jax.numpy as jnp
 

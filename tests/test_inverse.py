@@ -26,10 +26,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sexy_raytracer_tpu.diff.inverse import inverse_render
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.render.renderer import render_accumulate
-from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
+from sexy_raytracer_jax.diff.inverse import inverse_render
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.render.renderer import render_accumulate
+from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
 
 
 def _scene():

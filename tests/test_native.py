@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sexy_raytracer_tpu.models.bvh import build_bvh_numpy, validate_bvh
-from sexy_raytracer_tpu.native import bvh_native
+from sexy_raytracer_jax.models.bvh import build_bvh_numpy, validate_bvh
+from sexy_raytracer_jax.native import bvh_native
 
 
 @pytest.mark.skipif(not bvh_native.available(), reason="no native toolchain")

@@ -5,17 +5,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.parallel.mesh import make_mesh, RAY_AXIS, SAMPLE_AXIS
-from sexy_raytracer_tpu.parallel.render import render_sharded
-from sexy_raytracer_tpu.render.renderer import render
-from sexy_raytracer_tpu.utils import color as colorlib
-from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.parallel.mesh import make_mesh, RAY_AXIS, SAMPLE_AXIS
+from sexy_raytracer_jax.parallel.render import render_sharded
+from sexy_raytracer_jax.render.renderer import render
+from sexy_raytracer_jax.utils import color as colorlib
+from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
 
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device CPU mesh"
-)
+
+
+@pytest.fixture(autouse=True)
+def _mesh(eight_devices):
+    """Every test here needs the 8-device CPU mesh (skips without it)."""
 
 
 def _scene():
@@ -72,14 +74,14 @@ def test_sharded_non_divisible_spp():
 def test_train_step_on_mesh():
     import optax
 
-    from sexy_raytracer_tpu.diff.inverse import TrainState, make_train_step
-    from sexy_raytracer_tpu.diff.params import extract_params
-    from sexy_raytracer_tpu.parallel.mesh import replicate_scene, shard_rays
+    from sexy_raytracer_jax.diff.inverse import TrainState, make_train_step
+    from sexy_raytracer_jax.diff.params import extract_params
+    from sexy_raytracer_jax.parallel.mesh import replicate_scene, shard_rays
 
     scene = _scene()
     cfg = _cfg()
     mesh = make_mesh(n_rays=4, n_samples=2)
-    from sexy_raytracer_tpu.render.camera import Camera
+    from sexy_raytracer_jax.render.camera import Camera
 
     cam = Camera.from_config(cfg.camera, cfg.aspect)
     optimizer = optax.adam(1e-2)

@@ -4,7 +4,7 @@ import json
 
 import jax.numpy as jnp
 
-from sexy_raytracer_tpu.utils.profiling import Meter, sync
+from sexy_raytracer_jax.utils.profiling import Meter, sync
 
 
 def test_meter_accumulates_and_reports():
@@ -27,9 +27,9 @@ def test_sync_forces_pytrees():
 def test_renderer_prints_meter(capsys):
     import numpy as np
 
-    from sexy_raytracer_tpu.models import SceneBuilder
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
-    from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
+    from sexy_raytracer_jax.models import SceneBuilder
+    from sexy_raytracer_jax.render.renderer import render_accumulate
+    from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
 
     b = SceneBuilder()
     b.add_sphere((0, 0, -2), 1.0, b.add_pbr_material())

@@ -4,11 +4,11 @@ import dataclasses
 
 import numpy as np
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.oracle import Oracle
-from sexy_raytracer_tpu.render.renderer import render_accumulate
-from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig
-from sexy_raytracer_tpu.utils import color as colorlib
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.oracle import Oracle
+from sexy_raytracer_jax.render.renderer import render_accumulate
+from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig
+from sexy_raytracer_jax.utils import color as colorlib
 
 
 def small_scene():
@@ -76,7 +76,7 @@ def test_matches_oracle_statistics():
 
     orc = Oracle(scene, rng=np.random.default_rng(7).random)
     W, H = cfg.width, cfg.height
-    from sexy_raytracer_tpu.render.camera import Camera
+    from sexy_raytracer_jax.render.camera import Camera
 
     cam_rng = np.random.default_rng(13)
     spp = 48

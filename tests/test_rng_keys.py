@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sexy_raytracer_tpu.utils import rng
+from sexy_raytracer_jax.utils import rng
 
 
 def _key_data(keys):

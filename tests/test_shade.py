@@ -4,10 +4,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from sexy_raytracer_tpu.models import SceneBuilder
-from sexy_raytracer_tpu.ops.intersect import find_hit_bruteforce, hit_data
-from sexy_raytracer_tpu.ops.shade import shade
-from sexy_raytracer_tpu.oracle import reference as oracle
+from sexy_raytracer_jax.models import SceneBuilder
+from sexy_raytracer_jax.ops.intersect import find_hit_bruteforce, hit_data
+from sexy_raytracer_jax.ops.shade import shade
+from sexy_raytracer_jax.oracle import reference as oracle
 
 
 def build_material_zoo():

@@ -52,7 +52,7 @@ def reforacle_linear():
             cwd="/tmp", check=True, timeout=1200,
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
         )
-    from sexy_raytracer_tpu.utils.png import read_png
+    from sexy_raytracer_jax.utils.png import read_png
 
     png = read_png(out, 3).astype(np.float64)
     lo = (png / 256.0) ** 2
@@ -62,9 +62,9 @@ def reforacle_linear():
 
 @pytest.fixture(scope="module")
 def ours_batches():
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.render.camera import Camera
-    from sexy_raytracer_tpu.render.renderer import render_chunk
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.render.camera import Camera
+    from sexy_raytracer_jax.render.renderer import render_chunk
 
     scene, cfg = presets.shirley_parity(seed=SEED, spp=SPP, height=H)
     import dataclasses

@@ -17,11 +17,11 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from sexy_raytracer_tpu.diff.silhouette import sphere_silhouette_loss  # noqa: E402
-from sexy_raytracer_tpu.models.scene import SceneBuilder  # noqa: E402
-from sexy_raytracer_tpu.render.camera import Camera  # noqa: E402
-from sexy_raytracer_tpu.render.renderer import render_accumulate  # noqa: E402
-from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig  # noqa: E402
+from sexy_raytracer_jax.diff.silhouette import sphere_silhouette_loss  # noqa: E402
+from sexy_raytracer_jax.models.scene import SceneBuilder  # noqa: E402
+from sexy_raytracer_jax.render.camera import Camera  # noqa: E402
+from sexy_raytracer_jax.render.renderer import render_accumulate  # noqa: E402
+from sexy_raytracer_jax.utils.config import CameraConfig, RenderConfig  # noqa: E402
 
 W, H = 96, 54
 SPP = 8
@@ -75,7 +75,6 @@ def test_silhouette_gradient_matches_fd():
             sc, camera, target, [0], jax.random.key(3),
             width=W, height=H, max_bounce=cfg.max_bounce,
             background=cfg.background, n_edge=256, method="bruteforce",
-            fused=False,
         )
 
     g_sil = np.asarray(jax.grad(sil)(jnp.asarray(c0, jnp.float32)))
@@ -125,7 +124,6 @@ def test_silhouette_recovers_position():
             sc, camera, target, [0], key,
             width=W, height=H, max_bounce=cfg.max_bounce,
             background=cfg.background, n_edge=128, method="bruteforce",
-            fused=False,
         )
 
     opt = optax.adam(3e-2)

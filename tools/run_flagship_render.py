@@ -2,7 +2,7 @@
 """Flagship 720p render (VERDICT r2 #5): the reference's primary deliverable.
 
 Renders the Master Chief scene at 1280x720 with checkpoint/resume on the
-TPU, writes the full PNG + a 360p downsample into artifacts/flagship/, and
+GPU, writes the full PNG + a 360p downsample into artifacts/flagship/, and
 compares full-image region statistics against the reference golden
 images/test-5kx720p.png (VALIDATION.md tolerances; the iron-sphere region
 is excluded — its textures are absent from data/, reference texture.h:131).
@@ -42,18 +42,12 @@ def main():
     os.makedirs(ART, exist_ok=True)
 
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    try:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except AttributeError:
-        pass
     import numpy as np
 
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
-    from sexy_raytracer_tpu.utils import color as colorlib
-    from sexy_raytracer_tpu.utils.png import read_png, write_png
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.render.renderer import render_accumulate
+    from sexy_raytracer_jax.utils import color as colorlib
+    from sexy_raytracer_jax.utils.png import read_png, write_png
 
     scene, cfg = presets.masterchief(height=720, spp=args.spp)
     # batch samples: one compiled dispatch per 4 samples of a pixel chunk

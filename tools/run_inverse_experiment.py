@@ -59,8 +59,8 @@ def to_u8(x):
 def make_target_240p():
     """(scene, cfg, target_lin, target_resolved) for the self-recovery
     phases — cached on disk (deterministic seed -> identical re-render)."""
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.render.renderer import render_accumulate
 
     scene, cfg = presets.masterchief(height=240)
     cfg = dataclasses.replace(cfg, samples_per_pixel=128)
@@ -99,8 +99,8 @@ def chan_mask():
 
 def eval_recovery(report, prefix, scene_true_atlas, pert_atlas, opt_scene,
                   target, cfg, losses):
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
-    from sexy_raytracer_tpu.utils.png import write_png
+    from sexy_raytracer_jax.render.renderer import render_accumulate
+    from sexy_raytracer_jax.utils.png import write_png
 
     def render_resolved(s):
         return resolved_of(
@@ -149,8 +149,8 @@ def phase1_crn(report):
     """CRN upper bound (r4 evidence, re-run for regression)."""
     import jax
 
-    from sexy_raytracer_tpu.diff.inverse import inverse_render
-    from sexy_raytracer_tpu.utils.png import write_png
+    from sexy_raytracer_jax.diff.inverse import inverse_render
+    from sexy_raytracer_jax.utils.png import write_png
 
     scene, cfg, target_lin, target = make_target_240p()
     true_atlas, pert_atlas, perturbed = perturb_atlas(scene)
@@ -188,7 +188,7 @@ def phase1b_stochastic(report):
     import jax
     import jax.numpy as jnp
 
-    from sexy_raytracer_tpu.diff.inverse import inverse_render
+    from sexy_raytracer_jax.diff.inverse import inverse_render
 
     scene, cfg, target_lin, target = make_target_240p()
     true_atlas, pert_atlas, perturbed = perturb_atlas(scene)
@@ -316,8 +316,8 @@ def phase1c_silhouette(report):
     import jax.numpy as jnp
     import optax
 
-    from sexy_raytracer_tpu.diff.silhouette import sphere_silhouette_loss
-    from sexy_raytracer_tpu.render.camera import Camera
+    from sexy_raytracer_jax.diff.silhouette import sphere_silhouette_loss
+    from sexy_raytracer_jax.render.camera import Camera
 
     scene, cfg, target_lin, target = make_target_240p()
     IRON = 2  # ground(0) light(1) iron(2) metal(3), presets.masterchief
@@ -375,10 +375,10 @@ def phase2_golden(report):
     """720p vs the reference golden, 2000 steps + artifacts (r4 #5)."""
     import jax.numpy as jnp
 
-    from sexy_raytracer_tpu.diff.inverse import inverse_render
-    from sexy_raytracer_tpu.models import presets
-    from sexy_raytracer_tpu.render.renderer import render_accumulate
-    from sexy_raytracer_tpu.utils.png import read_png, write_png
+    from sexy_raytracer_jax.diff.inverse import inverse_render
+    from sexy_raytracer_jax.models import presets
+    from sexy_raytracer_jax.render.renderer import render_accumulate
+    from sexy_raytracer_jax.utils.png import read_png, write_png
 
     golden = read_png("/root/reference/images/test-5kx720p.png", 3)
     if golden is None:
@@ -446,12 +446,6 @@ def main():
 
     os.makedirs(ART, exist_ok=True)
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    try:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except AttributeError:
-        pass
 
     report_path = os.path.join(ART, "report.json")
     report = {}
